@@ -17,7 +17,7 @@ from .pipeline import PipelineConfig, default_prefix, run_pipeline
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="panmap_tpu",
-        description="TPU-native pangenome placement, alignment, and genotyping",
+        description="Pangenome placement, alignment, and genotyping on JAX",
     )
     p.add_argument("panman", help="PanMAN file")
     p.add_argument("reads1", nargs="?", default="", help="reads (FASTQ/FASTA, optionally .gz)")
@@ -110,7 +110,7 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--device-pileup", default="auto",
                    choices=["auto", "on", "off"],
                    help="genotype pileup tallies on the accelerator "
-                        "(auto: on for locally-attached devices)")
+                        "(auto: on when the JAX device is a GPU)")
 
     g = p.add_argument_group("metagenomic")
     g.add_argument("--meta", action="store_true", help="metagenomic mode")
@@ -237,6 +237,86 @@ def _print_short_help(parser):
     sys.stdout.write(fmt.format_help())
 
 
+def pipeline_config(args, out: str, log) -> PipelineConfig:
+    """The single-sample PipelineConfig for parsed CLI ``args`` (output
+    prefix ``out``, logger ``log``)."""
+    return PipelineConfig(
+        panman=args.panman, reads1=args.reads1, reads2=args.reads2, output=out,
+        index_path=args.index, index_out=args.index_out,
+        index_compressed=(args.zstd_level > 0 and not args.index_uncompressed),
+        k=args.kmer, s=args.syncmer, t=args.offset,
+        l=args.lmer, open=args.open, hpc=args.hpc, flank_mask_bp=args.flank_mask,
+        impute=args.impute, extent_guard=args.extent_guard,
+        min_depth=args.min_depth, min_qual=args.min_qual,
+        min_read_support=args.min_read_support,
+        min_seed_quality=args.min_seed_quality,
+        reference_node=args.reference_node, reindex=args.reindex,
+        seed_mask_fraction=args.seed_mask_fraction,
+        aligner=args.aligner,
+        refine=args.refine, refine_top_pct=args.refine_top_pct,
+        refine_max_top_n=args.refine_max_top_n,
+        refine_neighbor_radius=args.refine_neighbor_radius,
+        refine_max_neighbor_n=args.refine_max_neighbor_n,
+        no_mutation_spectrum=args.no_mutation_spectrum,
+        mutation_matrix=args.mutation_matrix,
+        baq=args.baq, device_pileup=args.device_pileup,
+        dedup_reads=args.dedup_reads, trim_start=args.trim_start,
+        trim_end=args.trim_end, force_leaf=args.force_leaf,
+        device_place=args.device_place, stop=args.stop,
+        threads=args.threads, batch_file=args.batch_file,
+        dump_all_scores=args.dump_all_scores,
+        dump_seed_freq=args.dump_seed_freq, verify_scores=args.verify_scores,
+        profile_dir=args.profile_dir,
+        mesh=args.mesh,
+        export_ref_idx=args.export_ref_idx,
+        log=log,
+    )
+
+
+def meta_config(args, out: str, log):
+    """The --meta MetaConfig for parsed CLI ``args``."""
+    from .meta.driver import MetaConfig
+
+    return MetaConfig(
+        panman=args.panman, reads1=args.reads1, reads2=args.reads2,
+        output=out, k=args.kmer, s=args.syncmer, t=args.offset, l=args.lmer,
+        open=args.open,
+        index_path=args.index, index_out=args.index_out,
+        em_convergence_threshold=args.em_convergence_threshold,
+        em_delta_threshold=args.em_delta_threshold,
+        em_maximum_rounds=args.em_maximum_rounds,
+        em_maximum_iterations=args.em_maximum_iterations,
+        top_oc=args.top_oc, dust=args.dust, discard=args.discard,
+        mask_reads=args.mask_reads, mask_seeds=args.mask_seeds,
+        mask_reads_rf=args.mask_reads_rf, mask_seeds_rf=args.mask_seeds_rf,
+        amplicon_depth=args.amplicon_depth,
+        mask_read_ends=args.mask_read_ends,
+        pseudochain=args.pseudochain,
+        filter_and_assign=args.filter_and_assign,
+        taxonomy_path=args.taxonomic_metadata,
+        taxonomic_rank=args.taxonomic_rank,
+        max_taxon_number=args.maximum_taxon_number,
+        ambiguous_score_threshold=args.ambiguous_score_threshold,
+        ambiguous_score_threshold_ratio=args.ambiguous_score_threshold_ratio,
+        breadth_ratio=args.breadth_ratio,
+        jplace=args.jplace,
+        align_reads=args.align_reads,
+        min_num_align=args.min_num_align,
+        leaves_only=args.leaves_only,
+        em_candidates=args.em_candidates,
+        write_ocranks=args.write_ocranks,
+        write_read_scores_unfiltered=args.write_meta_read_scores_unfiltered,
+        write_read_scores_filtered=args.write_meta_read_scores_filtered,
+        batch_size=args.batch_size,
+        host_score=args.host_score,
+        em_f64=args.em_f64,
+        mesh=args.mesh,
+        threads=args.threads,
+        stop=args.stop,
+        log=log,
+    )
+
+
 def main(argv=None):
     raw = list(sys.argv[1:] if argv is None else argv)
     parser = build_parser()
@@ -288,46 +368,9 @@ def main(argv=None):
                                   args.simulate_snps, out, args.random_seed, log)
 
     if args.meta:
-        from .meta.driver import MetaConfig, run_meta
+        from .meta.driver import run_meta
 
-        mcfg = MetaConfig(
-            panman=args.panman, reads1=args.reads1, reads2=args.reads2,
-            output=out, k=args.kmer, s=args.syncmer, t=args.offset, l=args.lmer,
-            open=args.open,
-            index_path=args.index, index_out=args.index_out,
-            em_convergence_threshold=args.em_convergence_threshold,
-            em_delta_threshold=args.em_delta_threshold,
-            em_maximum_rounds=args.em_maximum_rounds,
-            em_maximum_iterations=args.em_maximum_iterations,
-            top_oc=args.top_oc, dust=args.dust, discard=args.discard,
-            mask_reads=args.mask_reads, mask_seeds=args.mask_seeds,
-            mask_reads_rf=args.mask_reads_rf, mask_seeds_rf=args.mask_seeds_rf,
-            amplicon_depth=args.amplicon_depth,
-            mask_read_ends=args.mask_read_ends,
-            pseudochain=args.pseudochain,
-            filter_and_assign=args.filter_and_assign,
-            taxonomy_path=args.taxonomic_metadata,
-            taxonomic_rank=args.taxonomic_rank,
-            max_taxon_number=args.maximum_taxon_number,
-            ambiguous_score_threshold=args.ambiguous_score_threshold,
-            ambiguous_score_threshold_ratio=args.ambiguous_score_threshold_ratio,
-            breadth_ratio=args.breadth_ratio,
-            jplace=args.jplace,
-            align_reads=args.align_reads,
-            min_num_align=args.min_num_align,
-            leaves_only=args.leaves_only,
-            em_candidates=args.em_candidates,
-            write_ocranks=args.write_ocranks,
-            write_read_scores_unfiltered=args.write_meta_read_scores_unfiltered,
-            write_read_scores_filtered=args.write_meta_read_scores_filtered,
-            batch_size=args.batch_size,
-            host_score=args.host_score,
-            em_f64=args.em_f64,
-            mesh=args.mesh,
-            threads=args.threads,
-            stop=args.stop,
-            log=log,
-        )
+        mcfg = meta_config(args, out, log)
         if args.batch_file:
             # --batch works in both modes (main.cpp:2424-2443): meta loops the
             # run per sample; the index (and here also the in-memory arrays)
@@ -355,64 +398,12 @@ def main(argv=None):
             return 0
         return run_meta(mcfg)
 
-    cfg = PipelineConfig(
-        panman=args.panman, reads1=args.reads1, reads2=args.reads2, output=out,
-        index_path=args.index, index_out=args.index_out,
-        index_compressed=(args.zstd_level > 0 and not args.index_uncompressed),
-        k=args.kmer, s=args.syncmer, t=args.offset,
-        l=args.lmer, open=args.open, hpc=args.hpc, flank_mask_bp=args.flank_mask,
-        impute=args.impute, extent_guard=args.extent_guard,
-        min_depth=args.min_depth, min_qual=args.min_qual,
-        min_read_support=args.min_read_support,
-        min_seed_quality=args.min_seed_quality,
-        reference_node=args.reference_node, reindex=args.reindex,
-        seed_mask_fraction=args.seed_mask_fraction,
-        aligner=args.aligner,
-        refine=args.refine, refine_top_pct=args.refine_top_pct,
-        refine_max_top_n=args.refine_max_top_n,
-        refine_neighbor_radius=args.refine_neighbor_radius,
-        refine_max_neighbor_n=args.refine_max_neighbor_n,
-        no_mutation_spectrum=args.no_mutation_spectrum,
-        mutation_matrix=args.mutation_matrix,
-        baq=args.baq, device_pileup=args.device_pileup,
-        dedup_reads=args.dedup_reads, trim_start=args.trim_start,
-        trim_end=args.trim_end, force_leaf=args.force_leaf,
-        device_place=args.device_place, stop=args.stop,
-        threads=args.threads, batch_file=args.batch_file,
-        dump_all_scores=args.dump_all_scores,
-        dump_seed_freq=args.dump_seed_freq, verify_scores=args.verify_scores,
-        profile_dir=args.profile_dir,
-        mesh=args.mesh,
-        export_ref_idx=args.export_ref_idx,
-    )
-    cfg.log = log
-    return run_pipeline(cfg) or 0
-
-
-def _exit(rc: int):
-    """Hard process exit (os._exit) after flushing stdio: every artifact is
-    written and closed by the stage code, atexit-level work is done inside
-    run_pipeline (try/finally), and interpreter finalization costs ~2 s of
-    DSO/runtime teardown on top — or SIGABRTs outright when a cold-dispatch
-    race left a device thread mid-dispatch.  The reference binary's C++
-    main returns straight to _exit the same way.
-
-    EXCEPTION: multi-host runs exit normally — process 0 hosts the
-    jax.distributed coordinator, and hard-exiting it severs peers that are
-    still finishing (graceful teardown runs jax.distributed.shutdown)."""
-    from .parallel.dist import maybe_initialize
-
-    if (getattr(maybe_initialize, "_done", False)
-            or os.environ.get("JAX_COORDINATOR_ADDRESS")):
-        sys.exit(rc)
-    sys.stdout.flush()
-    sys.stderr.flush()
-    os._exit(rc)
+    return run_pipeline(pipeline_config(args, out, log)) or 0
 
 
 if __name__ == "__main__":
     try:
-        _exit(main())
+        sys.exit(main())
     except KeyboardInterrupt:
         # reference signal handler semantics (logging.hpp:427-459): exit 130
         print("interrupted", file=sys.stderr)

@@ -7,7 +7,7 @@ tuned for modern reads.  bwa aln is a whole-read (glocal) aligner: the entire
 read must align within max_diff differences (bwtaln.c:42-55 bwa_cal_maxdiff
 Poisson threshold).
 
-TPU-native equivalent, same behavioral contract: dense small-k minimizer
+Array-program equivalent, same behavioral contract: dense small-k minimizer
 anchoring (high sensitivity, no long seed requirement), then whole-read
 SEMI-GLOBAL affine DP (no soft clips — damaged read ends stay aligned, unlike
 the sr local path), accepted only when the edit distance is within

@@ -17,8 +17,9 @@ min_cnt=2, min_chain_score=25, min_dp_max=40, FR pairing) with an array program:
    first in (rs, seg) order, gap under max_gap_ref -> proper_frag; bcftools'
    default orphan skip makes this flag load-bearing downstream.
 
-The TPU batch path (align/tpu.py) reuses this module's plumbing and moves the
-gather/compare/trim math onto the device; the DP extension is the Pallas kernel.
+The batch path (align/batch.py) reuses this module's plumbing with a
+vectorized front-end; its full-window DP scoring runs on the device
+(align/sw_device.py).
 """
 
 from __future__ import annotations

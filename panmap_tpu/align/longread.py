@@ -337,23 +337,23 @@ class LongReadAligner:
 
     def align_batch(self, seqs: list, device: str | None = "auto") -> list:
         """Batch alignment.  The DP extension stage — the O(lq x band) hot
-        loop — runs on device (align/pallas_long.py) when enabled: "auto"
-        uses the device when the Pallas mode is active AND the accelerator
-        is locally attached (over a remote tunnel the direction-matrix
-        transfer dominates; PANMAP_PALLAS_LONG=1/0 overrides), "interpret"
-        forces the interpret-mode kernel (tests), None/off is host-only.
-        Outputs are bit-equal to the host DP path by construction."""
-        mode = self._resolve_long_device(device)
-        if mode is None:
+        loop — runs on the device (align/long_device.py) when ``device`` is
+        "device", or when it is "auto" and utils.device.device_mode() picks
+        the device; None is host-only.  Outputs are equal to the host DP
+        path by construction."""
+        if device == "auto":
+            from ..utils.device import device_mode
+
+            device = device_mode()
+        if device is None:
             return [self.align_read(s) for s in seqs]
-        from .pallas_long import long_dp_device_batch
+        from .long_device import long_dp_device_batch
 
         fronts = [self._chain_front(s) for s in seqs]
         items = [(f[0], f[1], f[2]) for f in fronts if f is not None]
         if not items:
             return [Alignment() for _ in seqs]
-        dps = long_dp_device_batch(items, self.index.codes2, self.pre,
-                                   interpret=mode == "interpret")
+        dps = long_dp_device_batch(items, self.index.codes2, self.pre)
         out = []
         it = iter(dps)
         for f in fronts:
@@ -362,31 +362,3 @@ class LongReadAligner:
             else:
                 out.append(self._finish(next(it), f[3]))
         return out
-
-    @staticmethod
-    def _resolve_long_device(device):
-        import os
-
-        if device in (None, "off"):
-            return None
-        if device == "interpret":
-            return "interpret"
-        env = os.environ.get("PANMAP_PALLAS_LONG", "")
-        if env == "0":
-            return None
-        if env in ("interpret",):
-            return "interpret"
-        from .batch import _pallas_mode
-
-        mode = _pallas_mode()
-        if mode == "interpret":
-            return "interpret"
-        if mode != "tpu":
-            return None
-        if env == "1":
-            return "tpu"
-        # auto: local accelerator only (remote tunnels pay the direction-
-        # matrix transfer, which dominates at long-read scale)
-        from ..utils.devinit import local_accelerator_attached
-
-        return "tpu" if local_accelerator_attached() else None

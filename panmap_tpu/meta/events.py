@@ -1,4 +1,4 @@
-"""Presence-flip event extraction for the TPU meta scorer.
+"""Presence-flip event extraction for the device meta scorer.
 
 The per-node seed deltas are path-dependent (a row's effect depends on the
 running count), so one sequential DFS replay converts them into ABSOLUTE

@@ -1,7 +1,8 @@
 // Native host-side kernels for panmap_tpu.
 //
-// The TPU owns the batched compute path (sketching queries, scoring,
-// alignment DP); these C++ kernels cover the HOST hot loops that feed it —
+// The accelerator owns the batched compute path (placement scoring, meta
+// scoring, the deferred alignment DP); these C++ kernels cover the HOST hot
+// loops that feed it —
 // the index builder's per-window syncmer recomputation and read-table
 // encoding — mirroring the roles the reference implements natively
 // (src/seeding.cpp:47-229 rollingSyncmers, src/index_single_mode.cpp DFS).
@@ -1312,8 +1313,8 @@ struct Ctx {
     int64_t m_idx;
     int k, w;
     // defer_dp: instead of running the full-window banded DP here, report the
-    // (window, votes) so the caller can score the batch on the TPU (the
-    // Pallas banded-SW kernel) and run host traceback only for survivors
+    // (window, votes) so the caller can score the batch on the device
+    // (align/sw_device.py) and run host traceback only for survivors
     int defer_dp = 0;
     // open-addressing table over the DISTINCT hashes of the (sorted) ref
     // index: hash -> first row of its run.  Replaces the per-minimizer

@@ -1,13 +1,15 @@
 """Multi-host distribution scaffolding (SURVEY §5.8).
 
 The reference is strictly single-node shared-memory (TBB); its batch mode
-parallelizes samples across threads (main.cpp:1575-1658).  The TPU-native
-multi-host story is the standard JAX one: ONE PROCESS PER HOST calls
+parallelizes samples across threads (main.cpp:1575-1658).  The multi-host
+story here is the standard JAX one: ONE PROCESS PER HOST calls
 ``jax.distributed.initialize`` against a shared coordinator, after which
-``jax.devices()`` spans every chip in the cluster and the mesh programs in
-parallel/mesh.py + place/query_tpu.py run unchanged — psums ride ICI within a
-slice and DCN across slices.  No NCCL/MPI translation: the collectives are
-XLA's.
+``jax.devices()`` spans every GPU in the cluster and the mesh programs in
+parallel/mesh.py + place/query_tpu.py run unchanged.  The collectives are
+XLA's: on GPUs it hands each psum to NCCL, over NVLink between the cards of
+one host and over the network between hosts.  Nothing here detects a
+cluster: the coordinator address, process count and process id are always
+given (flags or the JAX_* variables).
 
 "Multi-host without a cluster" (SURVEY §4.5): N local processes, each with
 virtual CPU devices (XLA_FLAGS=--xla_force_host_platform_device_count=K),
@@ -28,8 +30,7 @@ def maybe_initialize(coordinator: str = "", num_processes: int = 0,
     Flag precedence: explicit arguments (--dist-coordinator/--dist-nprocs/
     --dist-pid), then the standard JAX env vars (JAX_COORDINATOR_ADDRESS,
     JAX_NUM_PROCESSES, JAX_PROCESS_ID — honored by initialize() itself when
-    called with no arguments), then TPU pod auto-detection (initialize() with
-    no arguments on a pod slice).  Returns True when distributed mode is
+    called with no arguments).  Returns True when distributed mode is
     active.  Idempotent: repeat calls are no-ops."""
     import jax
 

@@ -1,10 +1,10 @@
 """Multi-chip sharding for placement scoring and read sketching.
 
 The reference is single-node shared-memory (SURVEY §2.3); this module is the
-TPU-native replacement: a 1-D `jax.sharding.Mesh` over chips, seed-change rows
-split across devices, per-shard partial per-node metric sums combined with a
-`psum` over ICI, and the (cheap, replicated) Euler-tour prefix finishing the
-scores on every chip.  Read batches shard the same way for sketching (data
+multi-device replacement: a 1-D `jax.sharding.Mesh` over GPUs, seed-change
+rows split across devices, per-shard partial per-node metric sums combined
+with a `psum` (an NCCL all-reduce over NVLink), and the (cheap, replicated)
+Euler-tour prefix finishing the scores on every device.  Read batches shard the same way for sketching (data
 parallel per chip).
 """
 
@@ -57,7 +57,7 @@ def make_sharded_score_fn(mesh: Mesh, n_nodes: int):
         # shared delta body (place/metrics.py) over this shard's rows
         partial = row_node_sums(lrc, row_parent, row_child, found, row_node,
                                 n_nodes)
-        return jax.lax.psum(partial, "data")  # partial metric sums ride ICI
+        return jax.lax.psum(partial, "data")  # all-reduce of partial sums
 
     sharded = shard_map(
         _shard_body,
@@ -99,8 +99,8 @@ def make_sharded_em_fn(mesh: Mesh, eta: float = 1e-5,
                        max_iterations: int = 1000, max_rounds: int = 1):
     """SQUAREM EM with READS sharded over the mesh (SURVEY §5.8: E-step
     sufficient statistics — per-node responsibility sums and the log
-    likelihood — are psum'd over ICI every iteration; proportions stay
-    replicated).  Delegates to THE shared fused-rounds body
+    likelihood — are psum'd across the devices every iteration; proportions
+    stay replicated).  Delegates to THE shared fused-rounds body
     (meta.engine._squarem_body with axis_name="data") — one EM definition
     site for the single-device and mesh paths.
 

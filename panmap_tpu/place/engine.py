@@ -354,7 +354,7 @@ def select_best(scores: np.ndarray, parent_index: np.ndarray,
                 force_leaf: bool = False,
                 skip_node_index: int | None = None) -> PlacementScores:
     """Tolerance-aware best/tie selection over a [N,5] score matrix
-    (src/placement.cpp:355-401); shared by the f64 engine and the TPU path."""
+    (src/placement.cpp:355-401); shared by the f64 engine and the device path."""
     n_nodes = scores.shape[0]
     result = PlacementScores(scores=scores)
     eligible = np.ones(n_nodes, dtype=bool)

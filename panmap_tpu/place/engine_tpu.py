@@ -1,11 +1,11 @@
-"""TPU placement scoring: per-row metric deltas -> per-node scores, in JAX.
+"""Device placement scoring: per-row metric deltas -> per-node scores, in JAX.
 
 The fast path of the parity engine (place/engine.py), expressed as one fused
 device program:
 
  - row hashes are re-mapped once per index to dense int32 ids (host-side), so
    the row<->read join is a native int32 searchsorted on device — no u64
-   emulation on the TPU;
+   keys on the device (x64 is off);
  - per-row deltas are f32 vector math; per-node sums use segment_sum;
  - the ancestor accumulation down the DFS uses an Euler-tour signed prefix sum
    (+delta at subtree entry, -delta at exit, one cumsum over 2N slots), turning
@@ -13,7 +13,7 @@ device program:
    single parallel scan;
  - the whole thing jits to one XLA program and shards over a device mesh by
    splitting rows (see parallel/mesh.py): per-shard partial node sums combine
-   with a psum, exactly the "partial metric sums over ICI" design.
+   with a psum across the devices.
 
 Exact f64 scoring for golden-output parity stays in place/engine.py; this path
 is for throughput (the driver's reads/s metric) with f32 scores + optional f64
@@ -63,8 +63,8 @@ def prepare_device_index(idx: IndexArrays, mesh=None) -> DeviceIndex:
     jax.sharding.Mesh over the "data" axis), the row tensors are padded to a
     multiple of the mesh size with inert rows (P == C == 0: every metric
     delta is exactly 0) and placed SHARDED across the devices — the
-    multi-chip product path (SURVEY §5.8: seed-change rows split over chips,
-    partial per-node metric sums psum'd over ICI)."""
+    multi-device product path (SURVEY §5.8: seed-change rows split over
+    devices, partial per-node metric sums psum'd across them)."""
     from ..utils.fastnp import unique_inverse
 
     uniq, row_id = unique_inverse(idx.seed_hashes)
@@ -202,7 +202,7 @@ def make_score_fn(n_nodes: int, n_rows: int, blk=None):
     return score
 
 
-def compute_scores_tpu(dev: DeviceIndex, read_ids, read_logc, log_mag: float,
+def compute_scores_device(dev: DeviceIndex, read_ids, read_logc, log_mag: float,
                        read_unique: int, logcont_den: float,
                        seed_inv_root=None):
     """Returns f32 scores [N,5] in METRICS order."""

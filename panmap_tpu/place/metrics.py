@@ -92,11 +92,12 @@ def row_node_sums(lrc, P, C, found, row_node, n_nodes):
     C = C.astype(lrc.dtype)
     deltas = jnp.stack(row_metric_deltas(jnp, lrc, P, C, found), axis=1)
     # rows are CSR-grouped by node, so the segment ids are sorted — the
-    # hint lets XLA lower a sorted scatter (measured 46 -> 30 ms/step on
-    # the 2.4M-row sars index on v5e).  A prefix-difference formulation
-    # would be 4x faster still but its f32 error over the multi-million-row
+    # hint lets XLA lower a sorted scatter.  A prefix-difference formulation
+    # avoids the scatter, but its f32 error over the multi-million-row
     # global cumsum reaches ~10 absolute on the accumulators (vs 1e-3 for
-    # per-segment summation) — measured on the real workload and rejected.
+    # per-segment summation), so it was rejected.  On a GPU the scatter's
+    # atomics add in an order that can change between runs; the per-query
+    # guard in place/query_tpu.py measures the resulting f32 error.
     return jax.ops.segment_sum(deltas, row_node, num_segments=n_nodes,
                                indices_are_sorted=True)
 

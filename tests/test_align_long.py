@@ -132,13 +132,13 @@ def test_chain_dp_prefers_colinear_chain_over_bigger_scatter():
 
 
 def test_long_device_dp_bit_equal_host():
-    """The Pallas long-read DP (direction bytes + z-drop replay +
-    direction-walk traceback, align/pallas_long.py) must be BIT-EQUAL to
+    """The device long-read DP (direction bytes + z-drop replay +
+    direction-walk traceback, align/long_device.py) must be BIT-EQUAL to
     the host banded_dp_shifted on random windows covering mismatches,
     short indels, long deletions (the E2 tier) and z-drop stops."""
     from panmap_tpu.align.core import encode
     from panmap_tpu.align.longread import MAP_ONT, banded_dp_shifted
-    from panmap_tpu.align.pallas_long import long_dp_device_batch
+    from panmap_tpu.align.long_device import long_dp_device_batch
 
     rng = np.random.default_rng(61)
     ref = "".join("ACGT"[i] for i in rng.integers(0, 4, 12000))
@@ -163,15 +163,15 @@ def test_long_device_dp_bit_equal_host():
         dlo, dhi = p - 400, p + 400
         items.append((q, dlo, dhi))
         host.append(banded_dp_shifted(q, refc, dlo, dhi, MAP_ONT))
-    dev = long_dp_device_batch(items, refc, MAP_ONT, interpret=True)
+    dev = long_dp_device_batch(items, refc, MAP_ONT)
     for t, (h, d) in enumerate(zip(host, dev)):
         assert h == d, (t, h[:5], d[:5])
 
 
 def test_long_aligner_device_batch_matches_host():
-    """LongReadAligner.align_batch(device="interpret") must reproduce the
+    """LongReadAligner.align_batch(device="device") must reproduce the
     host path field-for-field on a mixed read set (the map-ont device
-    product path; VERDICT r3 #2)."""
+    product path)."""
     from panmap_tpu.align.longread import MAP_ONT, LongReadAligner
 
     rng = np.random.default_rng(71)
@@ -194,7 +194,7 @@ def test_long_aligner_device_batch_matches_host():
     reads.append("ACGT" * 10)  # unmapped short junk
     lr = LongReadAligner(ref, MAP_ONT)
     base = lr.align_batch(reads, device=None)
-    got = lr.align_batch(reads, device="interpret")
+    got = lr.align_batch(reads, device="device")
     for i, (a, b) in enumerate(zip(base, got)):
         assert (a.mapped, a.rev, a.rs, a.re, a.qs, a.qe, a.score, a.mapq,
                 a.cigar) == (b.mapped, b.rev, b.rs, b.re, b.qs, b.qe,
@@ -202,13 +202,12 @@ def test_long_aligner_device_batch_matches_host():
 
 
 def test_long_device_dp_narrow_band_padding_masked():
-    """Regression (round-4 review): W pads to a multiple of 128 for the
-    device, but the EXTRA columns must stay out of band — a narrow band
-    (W_orig=129 -> padded 256) must give the host oracle's exact result,
-    not explore wider diagonals."""
+    """W pads to a multiple of 128 for the device, but the EXTRA columns
+    must stay out of band — a narrow band (W_orig=129 -> padded 256) must
+    give the host oracle's exact result, not explore wider diagonals."""
     from panmap_tpu.align.core import encode
     from panmap_tpu.align.longread import MAP_ONT, banded_dp_shifted
-    from panmap_tpu.align.pallas_long import long_dp_device_batch
+    from panmap_tpu.align.long_device import long_dp_device_batch
 
     rng = np.random.default_rng(5)
     ref = "".join("ACGT"[i] for i in rng.integers(0, 4, 6000))
@@ -217,6 +216,53 @@ def test_long_device_dp_narrow_band_padding_masked():
     cases = [(q, 2800, 2928), (q, 3000 - 64, 3000 + 64),
              (refc[100:900].copy(), 40, 168)]
     host = [banded_dp_shifted(qq, refc, a, b, MAP_ONT) for qq, a, b in cases]
-    dev = long_dp_device_batch(cases, refc, MAP_ONT, interpret=True)
+    dev = long_dp_device_batch(cases, refc, MAP_ONT)
     for t, (h, d) in enumerate(zip(host, dev)):
         assert h == d, (t, h[:5], d[:5])
+
+
+def test_long_device_batch_pads_to_shape_steps(monkeypatch):
+    """Compiled shapes come from a small grid: LQ a multiple of ROW_STEP, W
+    of COL_STEP, the batch a power of two; results stay equal to the host
+    DP for every item of a padded batch."""
+    from panmap_tpu.align import long_device as LD
+    from panmap_tpu.align.core import encode
+    from panmap_tpu.align.longread import MAP_ONT, banded_dp_shifted
+
+    shapes = []
+    real = LD._long_scan
+
+    def spy(q8, ref8, dlo, worig, lr, W, *a):
+        shapes.append((q8.shape, W))
+        return real(q8, ref8, dlo, worig, lr, W, *a)
+
+    monkeypatch.setattr(LD, "_long_scan", spy)
+    rng = np.random.default_rng(8)
+    refc = encode(np.frombuffer("".join(
+        "ACGT"[i] for i in rng.integers(0, 4, 5000)).encode(), np.uint8))
+    items = [(refc[p:p + n].copy(), p - 60, p + 60)
+             for p, n in ((500, 700), (2000, 900), (3100, 650))]
+    got = LD.long_dp_device_batch(items, refc, MAP_ONT)
+    assert shapes == [((4, LD.ROW_STEP * 2), LD.COL_STEP)]
+    for (q, a, b), g in zip(items, got):
+        assert g == banded_dp_shifted(q, refc, a, b, MAP_ONT)
+
+
+def test_long_device_oversized_item_runs_host(monkeypatch):
+    """An item whose direction matrix would exceed MAX_ITEM_CELLS runs the
+    host DP instead of allocating it on the device."""
+    from panmap_tpu.align import long_device as LD
+    from panmap_tpu.align.core import encode
+    from panmap_tpu.align.longread import MAP_ONT, banded_dp_shifted
+
+    def no_device(*a, **k):
+        raise AssertionError("device program called")
+
+    monkeypatch.setattr(LD, "_long_scan", no_device)
+    monkeypatch.setattr(LD, "MAX_ITEM_CELLS", 1000)
+    rng = np.random.default_rng(9)
+    refc = encode(np.frombuffer("".join(
+        "ACGT"[i] for i in rng.integers(0, 4, 3000)).encode(), np.uint8))
+    q = refc[1000:1600].copy()
+    assert LD.long_dp_device_batch([(q, 950, 1050)], refc, MAP_ONT) == \
+        [banded_dp_shifted(q, refc, 950, 1050, MAP_ONT)]

@@ -56,8 +56,8 @@ def test_device_em_drops_low_prop_nodes():
 
 
 def test_masked_em_compile_cache_reuse():
-    """Same padded shapes -> same compiled fn object (the whole point on a
-    remote-compile backend)."""
+    """Same padded shapes -> same compiled fn object (no recompile per
+    workload)."""
     from panmap_tpu.meta.engine import _MASKED_EM_CACHE, _get_masked_squarem
 
     a = _get_masked_squarem(256, 16384, 1e-5, 0.0, 1000)

@@ -1,18 +1,18 @@
-"""Pallas banded-SW kernel: equality with the numpy DP oracle, and the
-production aligner's device-scoring stage (deferred full-window DP rows)
+"""Device banded-SW scoring program: equality with the numpy DP oracle, and
+the production aligner's device-scoring stage (deferred full-window DP rows)
 producing identical alignments to the all-host path.
 
 Reference analog: the ksw2 extension kernels inside minimap2
 (src/3rdparty/minimap2/ksw2_extz2_sse.c, driven via src/mm_align.c:148-199).
-On CPU the kernel runs in interpret mode; on hardware the same program runs
-compiled (bench.py reports the GCUPS line from the real device).
+Here the program runs on XLA:CPU; chip_smoke.py runs the same program
+compiled for the GPU at every shape tier against the same oracle.
 """
 
 import numpy as np
 import pytest
 
 from panmap_tpu.align.core import MIN_DP_MAX, banded_affine_dp
-from panmap_tpu.align.pallas_sw import banded_sw_scores
+from panmap_tpu.align.sw_device import banded_sw_scores
 
 
 def _random_case(rng, lq, lr):
@@ -45,7 +45,7 @@ def test_kernel_matches_numpy_dp():
         qb[i, : len(q)] = q
         rb[i, : len(r)] = r
         ql[i] = len(q)
-    out = banded_sw_scores(qb, rb, ql, interpret=True)
+    out = np.asarray(banded_sw_scores(qb, rb, ql))
     for i, (q, r) in enumerate(cases):
         score, qs, bi, rs, bj, cig = banded_affine_dp(q, r)
         if score <= 0:
@@ -68,7 +68,7 @@ def test_kernel_window_padding_upper_bounds():
     for pad in (0, 57, 212):
         rb = np.full((1, len(r) + pad), 4, dtype=np.uint8)
         rb[0, : len(r)] = r
-        out = banded_sw_scores(qb, rb, ql, interpret=True)
+        out = np.asarray(banded_sw_scores(qb, rb, ql))
         assert out[0, 0] >= score
 
 
@@ -92,7 +92,7 @@ def _mutate_read(rng, ref, pos, ln):
 
 
 def test_aligner_device_stage_identical_to_host():
-    """BatchAligner with the Pallas scoring stage (interpret mode) returns
+    """BatchAligner with the device scoring stage (on XLA:CPU) returns
     alignments identical to the all-host native path — the device stage is a
     pure gate + survivor-recompute, never a numeric substitute."""
     from panmap_tpu.align.batch import BatchAligner
@@ -108,16 +108,17 @@ def test_aligner_device_stage_identical_to_host():
         reads.append(_mutate_read(rng, ref, pos, 151))
 
     host = BatchAligner(ref)
-    host.pallas_mode = None
+    host.device_mode = None
     base = host.align_batch(reads)
 
     dev = BatchAligner(ref)
-    dev.pallas_mode = "interpret"
+    dev.device_mode = "device"
+    dev.MIN_DEVICE_WINDOWS = 0
     got = dev.align_batch(reads)
 
-    assert dev.pallas_stats is not None and dev.pallas_stats["deferred"] > 0, \
+    assert dev.device_stats is not None and dev.device_stats["deferred"] > 0, \
         "test reads never reached the deferred DP path"
-    assert dev.pallas_stats["device_scored"] > 0, \
+    assert dev.device_stats["device_scored"] > 0, \
         "device scoring stage never ran"
     for i, (a, b) in enumerate(zip(base, got)):
         assert (a.mapped, a.rs, a.re, a.qs, a.qe, a.rev, a.score, a.mapq,
@@ -142,12 +143,14 @@ def test_aligner_arrays_device_stage_identical():
         reads.append(_mutate_read(rng, ref, pos, 151))
 
     host = BatchAligner(ref)
-    host.pallas_mode = None
+    host.device_mode = None
     base = host.align_batch_arrays(reads)
     dev = BatchAligner(ref)
-    dev.pallas_mode = "interpret"
+    dev.device_mode = "device"
+    dev.MIN_DEVICE_WINDOWS = 0
     got = dev.align_batch_arrays(reads)
-    assert dev.pallas_stats is not None and dev.pallas_stats["deferred"] > 0
+    assert dev.device_stats is not None and dev.device_stats["deferred"] > 0
+    assert dev.device_stats["device_scored"] > 0
     for key in ("mapped", "rev", "rs", "re", "qs", "qe", "score", "mapq",
                 "nm", "ncig"):
         np.testing.assert_array_equal(base[key], got[key], err_msg=key)
@@ -155,8 +158,8 @@ def test_aligner_arrays_device_stage_identical():
     assert base["extra_cigars"] == got["extra_cigars"]
 
 def test_breakeven_routing_host_path_identical():
-    """mode="tpu" with a deferred set below MIN_DEVICE_WINDOWS routes the
-    windows to the host DP (device dispatch latency beats throughput at small
+    """mode="device" with a deferred set below MIN_DEVICE_WINDOWS routes the
+    windows to the host DP (the host DP beats a device dispatch at small
     counts) — outputs must equal the all-host path exactly, and the stats
     must record the routing."""
     from panmap_tpu.align.batch import BatchAligner
@@ -172,16 +175,16 @@ def test_breakeven_routing_host_path_identical():
         reads.append(_mutate_read(rng, ref, pos, 151))
 
     host = BatchAligner(ref)
-    host.pallas_mode = None
+    host.device_mode = None
     base = host.align_batch(reads)
 
     routed = BatchAligner(ref)
-    routed.pallas_mode = "tpu"  # CPU machine: would die on dispatch, but the
-    # deferred set (< MIN_DEVICE_WINDOWS) must be routed to host before any
-    # device call is attempted
+    routed.device_mode = "device"
+    routed.MIN_DEVICE_WINDOWS = len(reads) + 1  # every deferred set is below
     got = routed.align_batch(reads)
 
-    st = routed.pallas_stats
+    st = routed.device_stats
+    assert st["deferred"] < routed.MIN_DEVICE_WINDOWS
     assert st is not None and st["deferred"] > 0
     assert st.get("routed_host", 0) == st["deferred"]
     assert st["device_scored"] == 0
@@ -209,14 +212,16 @@ def test_native_rows_resolution_matches_python_loop(monkeypatch):
         reads.append(_mutate_read(rng, ref, pos, 151))
 
     fast = BatchAligner(ref)
-    fast.pallas_mode = "tpu"  # small set -> host routing, via the native call
+    fast.device_mode = "device"  # small set -> host routing, native call
+    fast.MIN_DEVICE_WINDOWS = len(reads) + 1
     a = fast.align_batch_arrays(reads)
-    assert fast.pallas_stats and fast.pallas_stats.get("routed_host", 0) > 0
+    assert fast.device_stats and fast.device_stats["routed_host"] > 0
 
     monkeypatch.setattr(native, "align_sr_rows_native",
                         lambda *args, **kw: None)
     slow = BatchAligner(ref)
-    slow.pallas_mode = "tpu"
+    slow.device_mode = "device"
+    slow.MIN_DEVICE_WINDOWS = len(reads) + 1
     b = slow.align_batch_arrays(reads)
 
     for key in ("mapped", "rev", "rs", "re", "qs", "qe", "score", "mapq",
@@ -231,8 +236,8 @@ def test_native_rows_resolution_matches_python_loop(monkeypatch):
 def test_aligner_arrays_async_deferred_identical():
     """deferred_async: the dispatch-now/finish-later split (res["_fin"]) must
     produce arrays identical to the synchronous device stage, with the device
-    actually scoring (device_scored > 0) — the production single-sample path
-    (VERDICT r3 weak #1: the kernel must FIRE on the flagship workload)."""
+    actually scoring (device_scored > 0) — the production single-sample
+    path, which must fire the device stage on the flagship workload."""
     from panmap_tpu.align.batch import BatchAligner
     from panmap_tpu.native import get_lib
 
@@ -246,17 +251,19 @@ def test_aligner_arrays_async_deferred_identical():
         reads.append(_mutate_read(rng, ref, pos, 151))
 
     sync = BatchAligner(ref)
-    sync.pallas_mode = "interpret"
+    sync.device_mode = "device"
+    sync.MIN_DEVICE_WINDOWS = 0
     base = sync.align_batch_arrays(reads)
     a = BatchAligner(ref)
-    a.pallas_mode = "interpret"
+    a.device_mode = "device"
+    a.MIN_DEVICE_WINDOWS = 0
     got = a.align_batch_arrays(reads, deferred_async=True)
     fin = got.pop("_fin", None)
     if fin is not None:  # deferred rows existed: rows still pending here
         assert (got["mapped"] == 3).sum() > 0
         fin()
     assert (got["mapped"] == 3).sum() == 0
-    assert a.pallas_stats is not None and a.pallas_stats["device_scored"] > 0
+    assert a.device_stats is not None and a.device_stats["device_scored"] > 0
     for key in ("mapped", "rev", "rs", "re", "qs", "qe", "score", "mapq",
                 "nm", "ncig"):
         np.testing.assert_array_equal(base[key], got[key], err_msg=key)
@@ -264,32 +271,55 @@ def test_aligner_arrays_async_deferred_identical():
     assert base["extra_cigars"] == got["extra_cigars"]
 
 
-def test_kernel_i16_i32_state_equal():
-    """The int16 formulation (opt-in: PANMAP_SW_I16=1 on toolchains whose
-    Mosaic supports i16 vector ops) must stay bit-equal to the default
-    int32 state."""
-    import jax.numpy as jnp
-
-    from panmap_tpu.align.pallas_sw import _sw_call
-
+def test_kernel_tier_shape_and_padding_rows():
+    """At a production tier shape the program returns [B, 3] int32, padding
+    rows (qlen 0, all code 4) score 0 with no end, and real rows are
+    unaffected by the padding rows beside them."""
     rng = np.random.default_rng(3)
-    q = jnp.asarray(rng.integers(0, 4, (8, 160)).astype(np.int8))
-    r = jnp.asarray(rng.integers(0, 4, (8, 384)).astype(np.int8))
-    ql = jnp.asarray(np.full(8, 151, np.int32))
-    import panmap_tpu.align.pallas_sw as P
+    B, LQ, LW = 64, 256, 512
+    qb = np.full((B, LQ), 4, np.uint8)
+    rb = np.full((B, LW), 4, np.uint8)
+    ql = np.zeros(B, np.int32)
+    cases = [_random_case(rng, 151, 400) for _ in range(5)]
+    for i, (q, r) in enumerate(cases):
+        qb[i, : len(q)] = q
+        rb[i, : len(r)] = r
+        ql[i] = len(q)
+    out = np.asarray(banded_sw_scores(qb, rb, ql))
+    assert out.shape == (B, 3) and out.dtype == np.int32
+    assert (out[len(cases):] == 0).all()
+    alone = np.asarray(banded_sw_scores(qb[:8], rb[:8], ql[:8]))
+    np.testing.assert_array_equal(out[:8], alone)
 
-    a = np.asarray(P._sw_call(
-        jnp.asarray(np.pad(np.asarray(q), ((0, P.TILE - 8), (0, 0)),
-                           constant_values=4)),
-        jnp.asarray(np.pad(np.asarray(r), ((0, P.TILE - 8), (0, 0)),
-                           constant_values=4)),
-        jnp.asarray(np.pad(np.asarray(ql), (0, P.TILE - 8))),
-        True, False))
-    b = np.asarray(P._sw_call(
-        jnp.asarray(np.pad(np.asarray(q), ((0, P.TILE - 8), (0, 0)),
-                           constant_values=4)),
-        jnp.asarray(np.pad(np.asarray(r), ((0, P.TILE - 8), (0, 0)),
-                           constant_values=4)),
-        jnp.asarray(np.pad(np.asarray(ql), (0, P.TILE - 8))),
-        True, True))
-    assert np.array_equal(a, b)
+
+def test_device_stage_pads_to_shape_tiers(monkeypatch):
+    """Every dispatch shape of the device stage comes from the static
+    (LQ, LW, B) tier grid, so the set of compiled programs does not depend
+    on the workload; windows are bucketed by their own (LQ, LW) tier."""
+    from panmap_tpu.align import sw_device
+    from panmap_tpu.align.batch import BatchAligner
+    from panmap_tpu.native import get_lib
+
+    if get_lib() is None:
+        pytest.skip("native library unavailable")
+    shapes = []
+    real = sw_device.banded_sw_scores
+
+    def spy(qb, rb, ql):
+        shapes.append((qb.shape, rb.shape, ql.shape))
+        return real(qb, rb, ql)
+
+    monkeypatch.setattr(sw_device, "banded_sw_scores", spy)
+    rng = np.random.default_rng(23)
+    ref = "".join("ACGT"[i] for i in rng.integers(0, 4, 4000))
+    reads = [_mutate_read(rng, ref, int(rng.integers(0, len(ref) - 180)),
+                          151) for _ in range(80)]
+    dev = BatchAligner(ref)
+    dev.device_mode = "device"
+    dev.MIN_DEVICE_WINDOWS = 0
+    dev.align_batch(reads)
+    assert shapes
+    for (b, lq), (b2, lw), (b3,) in shapes:
+        assert b == b2 == b3 and b in BatchAligner._B_TIERS
+        assert lq in BatchAligner._LQ_TIERS and lw in BatchAligner._LW_TIERS
+    assert len(set(shapes)) == len(shapes)  # one dispatch per tier bucket

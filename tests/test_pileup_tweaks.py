@@ -241,9 +241,9 @@ def test_pileup_columnar_matches_object_front_end():
 
 
 def test_device_tally_matches_numpy(monkeypatch):
-    """PANMAP_TPU_DEVICE_PILEUP=1 routes the column tallies through the
-    jitted scatter-add program; records must be identical (int quality sums
-    are exact in f32)."""
+    """PANMAP_DEVICE=1 (the device decision's force switch) routes the
+    column tallies through the jitted scatter-add program; records must be
+    identical (int quality sums are exact in f32)."""
     import numpy as np
 
     from panmap_tpu.genotype.caller import pileup_call_columnar
@@ -251,9 +251,13 @@ def test_device_tally_matches_numpy(monkeypatch):
     rng = np.random.default_rng(33)
     ref = "".join(rng.choice(list("ACGT"), 2000))
     cols = _random_columnar(rng, ref, nreads=160)
+    from panmap_tpu.genotype.caller import TALLY_STATS
+
     base = pileup_call_columnar(ref, cols)
-    monkeypatch.setenv("PANMAP_TPU_DEVICE_PILEUP", "1")
+    calls = TALLY_STATS["calls"]
+    monkeypatch.setenv("PANMAP_DEVICE", "1")
     dev = pileup_call_columnar(ref, cols)
+    assert TALLY_STATS["calls"] > calls
     assert len(base) == len(dev)
     for a, b in zip(base, dev):
         assert (a.pos, a.ref, a.alts, a.gt, a.pls, a.ads, a.dp, a.qual) \
